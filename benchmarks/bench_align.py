@@ -1,8 +1,5 @@
 import time, numpy as np, sys
 sys.path.insert(0, str(__import__('pathlib').Path(__file__).parent.parent))
-import jax
-if jax.default_backend() != 'tpu':
-    jax.config.update('jax_platforms', 'cpu')
 from falcon_genome_tpu.aligner import AlignerEngine, AlignerParams, IndexParams, MinimizerIndex
 from falcon_genome_tpu.io.dna import revcomp_codes
 

@@ -82,7 +82,7 @@ def main():
         from falcon_genome_tpu.ops.smith_waterman import (
             sw_extend_gather, sw_score_gather)
         t = time.perf_counter()
-        scores, _ = sw_score_gather(
+        scores = sw_score_gather(
             reads8_dev, j_read, j_rev, j_rlen, eng.genome_dev,
             j_start, j_wlen, p.sw, bucket)
         tick("sw_score", time.perf_counter() - t)

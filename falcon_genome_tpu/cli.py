@@ -37,7 +37,7 @@ COMMANDS = {
 
 
 def print_help() -> None:
-    print("Falcon Genome TPU Analysis Kit "
+    print("Falcon Genome Analysis Kit "
           f"(falcon-genome-tpu) v{__version__}")
     print("Usage: falcon-genome-tpu [command] <options>\n")
     print("Commands:")

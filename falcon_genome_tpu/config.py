@@ -1,6 +1,6 @@
 """3-tier hierarchical config system with machine-aware defaults.
 
-TPU-native re-design of the reference's config layer (src/config.cpp,
+Re-design of the reference's config layer (src/config.cpp,
 include/fcs-genome/config.h):
 
 * dotted option keys with typed defaults          (config.cpp:271-355)
@@ -15,7 +15,7 @@ include/fcs-genome/config.h):
   warnings (config.cpp:84-116)
 * a ``conf`` subcommand dump (config.cpp:362-366).
 
-On TPU the "procs × heap" budget of the reference becomes a host-side staging
+Here the "procs × heap" budget of the reference becomes a host-side staging
 budget (how many region shards are resident/in flight per host), and new
 ``tpu.*`` options control mesh shape and kernel bucketing.
 """
@@ -123,7 +123,7 @@ def build_option_table() -> dict[str, Option]:
         O("latency_mode", bool, False, "enable latency (scale-out) mode"),
         O("use_gatk4", bool, True,
           "GATK4-flavor semantics for callers/filters (reference defaults to "
-          "GATK3; the TPU engine is GATK4-era by default)"),
+          "GATK3; this engine is GATK4-era by default)"),
         # ---- aligner (ref: config.cpp:293-309) ------------------------------
         O("bwa.verbose", int, 0, "verbose level of aligner logging"),
         O("bwa.nt", int, -1, "host threads for alignment IO (-1 = all)"),
@@ -158,7 +158,8 @@ def build_option_table() -> dict[str, Option]:
         O("gatk.combine.nprocs", int, "auto_nprocs", "workers in CombineGVCFs"),
         O("gatk.genotype.nprocs", int, "auto_nprocs", "workers in GenotypeGVCFs"),
         O("gatk.genotype.memory", int, "auto_memory", "memory in GenotypeGVCFs"),
-        # ---- TPU engine (new; no reference analog) --------------------------
+        # ---- device engine (new; no reference analog; the ``tpu.`` prefix ---
+        # ---- is the user-facing key name) ------------------------------------
         O("tpu.mesh.data", int, -1, "data-parallel mesh axis size (-1 = all devices)"),
         O("tpu.mesh.region", int, 1, "region-parallel mesh axis size"),
         O("tpu.dist.num_processes", int, 0,

@@ -1,6 +1,6 @@
 """I/O layer: genomics format codecs and the genome interval sharders.
 
-This is the TPU build's L2 (SURVEY.md §7): where the reference shells out to
+This is the build's L2 (SURVEY.md §7): where the reference shells out to
 samtools/bgzip/tabix and parses ``.dict``/``.fai`` sidecars
 (src/config.cpp:426-467), we provide in-repo codecs that decode straight into
 batched numpy arrays ready for device upload.

@@ -62,7 +62,7 @@ class RecordColumns:
         """Permutation for coordinate sort: (tid, pos), unmapped last.
 
         Under an active multi-device mesh the argsort runs as a
-        distributed sample-sort over ICI (parallel.sharded.
+        distributed sample-sort across devices (parallel.sharded.
         mesh_coordinate_order — the reference's bucket sort/merge tree,
         SambambaWorker.cpp SORT, as a device collective); the host
         lexsort is the single-device path and the fallback when the

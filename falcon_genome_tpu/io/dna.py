@@ -2,7 +2,7 @@
 
 Bases are encoded as small uint8 codes (A=0, C=1, G=2, T=3, N/other=4) — the
 same 4-bit-free layout the DP kernels consume, so sequence arrays go from
-file bytes to device HBM without re-mapping.  Ambiguity codes (IUPAC) map to N.
+file bytes to device memory without re-mapping.  Ambiguity codes (IUPAC) map to N.
 """
 from __future__ import annotations
 

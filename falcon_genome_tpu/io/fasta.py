@@ -3,7 +3,7 @@
 The reference parses ``.dict`` sidecars to learn contig names/lengths for
 interval sharding (src/config.cpp:426-467) and ``.fai`` for GenomicsDB vid
 generation (src/workers/CombineGVCFsWorker.cpp:52-146); it never decodes
-bases itself (bwa/GATK do).  The TPU engine decodes bases in-repo: the
+bases itself (bwa/GATK do).  This engine decodes bases in-repo: the
 reference genome is materialized as one uint8 code array per contig, ready
 for device upload and windowed gather.
 """

@@ -87,8 +87,8 @@ def _pack(records: list[tuple[str, bytes, bytes]], pad_to: int | None,
 
 class _NativeFastqStream:
     """Chunked native FASTQ parser: one C scan per batch instead of four
-    python readlines + an encode per record (~75 ms per 8k-read batch —
-    serial in the align pipeline loop)."""
+    python readlines + an encode per record (serial in the align pipeline
+    loop)."""
 
     CHUNK = 8 << 20
 

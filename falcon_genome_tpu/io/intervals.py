@@ -2,7 +2,7 @@
 
 The interval splitters are the reference's core data-parallel sharding
 primitive (SURVEY.md §2 row 3, P1): the genome is partitioned into
-``gatk.ncontigs`` shards, one caller worker per shard.  The TPU build keeps
+``gatk.ncontigs`` shards, one caller worker per shard.  This build keeps
 the identical shard *boundaries* (outputs depend on them) but the shards map
 to mesh regions rather than processes.
 

@@ -45,12 +45,6 @@ def load() -> ctypes.CDLL | None:
         lib.fg_minimizers.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        lib.fg_sw_traceback_batch.restype = None
-        lib.fg_sw_traceback_batch.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         lib.fg_ops_rle_batch.restype = None
         lib.fg_ops_rle_batch.argtypes = [
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
@@ -311,29 +305,6 @@ def minimizers_batch(codes2d: np.ndarray, lens: np.ndarray, k: int,
         k, w, offs.ctypes.data, out_h.ctypes.data, out_p.ctypes.data,
         out_s.ctypes.data, counts.ctypes.data)
     return out_h, out_p, out_s, offs, counts
-
-
-def sw_traceback_batch(ptr: np.ndarray, scores: np.ndarray,
-                       pos: np.ndarray, read_lens: np.ndarray,
-                       pos_stride: int, max_ops: int = 160):
-    """Returns (ops, lens, meta) arrays: (B, max_ops) int32 ×2 and (B, 5)
-    int32 meta = (ncigar, read_start, read_end, ref_start, ref_end)."""
-    lib = load()
-    if lib is None:
-        return None
-    D, R, B = ptr.shape
-    ptr = np.ascontiguousarray(ptr, np.int8)
-    scores = np.ascontiguousarray(scores, np.int32)
-    pos = np.ascontiguousarray(pos, np.int32)
-    read_lens = np.ascontiguousarray(read_lens, np.int32)
-    out_ops = np.zeros((B, max_ops), np.int32)
-    out_lens = np.zeros((B, max_ops), np.int32)
-    out_meta = np.zeros((B, 5), np.int32)
-    lib.fg_sw_traceback_batch(
-        ptr.ctypes.data, D, R, B, scores.ctypes.data, pos.ctypes.data,
-        read_lens.ctypes.data, pos_stride, max_ops,
-        out_ops.ctypes.data, out_lens.ctypes.data, out_meta.ctypes.data)
-    return out_ops, out_lens, out_meta
 
 
 def fastq_scan(buf: np.ndarray, max_recs: int, phred_offset: int,

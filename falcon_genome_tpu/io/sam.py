@@ -1,7 +1,7 @@
 """SAM data model: flags, CIGAR, records, headers.
 
 The reference delegates all SAM/BAM handling to external tools (bwa-flow
-writes, sambamba sorts/merges — SURVEY.md §2 rows 11/19); the TPU build owns
+writes, sambamba sorts/merges — SURVEY.md §2 rows 11/19); this build owns
 the format.  Alignment results live on device as flat arrays; this module is
 the boundary where they become records.
 """

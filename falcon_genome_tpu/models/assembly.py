@@ -3,7 +3,7 @@
 The GATK HaplotypeCaller step the reference accelerates only *around*
 (assembly stays on CPU even in the FPGA pipeline — the Blaze NAM serves
 PairHMM only, SURVEY.md §2 row 25).  The same split holds here: assembly is
-host-side, branchy graph code; its output feeds the PairHMM TPU kernel.
+host-side, branchy graph code; its output feeds the PairHMM device kernel.
 
 Algorithm (GATK-flavored, simplified):
 * k-mer graph from the reads of an active region; the reference haplotype's
@@ -157,8 +157,7 @@ def assemble_region(ref: np.ndarray, reads: list[np.ndarray],
     # so a real variant path (support above the rung) survives both the
     # cap and the escalation — without support-ordering, saturation
     # escalation dropped dense multi-het regions' variants arbitrarily;
-    # without escalation, junk bubbles tripled the PairHMM wall (939 s vs
-    # 629 s at the 60 Mb rehearsal).
+    # without escalation, junk bubbles inflated the PairHMM pair count.
     mult = params.min_edge_mult
     res = once(mult)
     while ((len(res.haplotypes) >= params.max_haplotypes or res.fallback)

@@ -1,6 +1,6 @@
 """Diploid genotyping from read×haplotype likelihoods.
 
-The math of GATK's HaplotypeCallerGenotypingEngine, fed by the PairHMM TPU
+The math of GATK's HaplotypeCallerGenotypingEngine, fed by the PairHMM device
 kernel's log10 P(read|hap) matrix:
 
 * variant events are read off each assembled haplotype's alignment to the

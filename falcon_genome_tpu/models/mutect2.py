@@ -3,7 +3,7 @@
 Reference surface: Mutect2Worker (SURVEY.md §2 row 15,
 src/workers/Mutect2Worker.cpp — GATK4 path with ``-normal/-tumor``) and
 Mutect2FilterWorker (row 16).  The machinery is shared with the
-HaplotypeCaller (assembly + PairHMM TPU kernel); the genotyping model is
+HaplotypeCaller (assembly + PairHMM device kernel); the genotyping model is
 the somatic likelihood-ratio test:
 
 * TLOD: log10 LR of "allele present in tumor at fraction f̂" vs "absent",

@@ -1,4 +1,4 @@
-"""Pallas TPU kernels + golden reference models for the DP inner loops.
+"""DP inner loops — XLA wavefronts, CUDA kernels, golden reference models.
 
 These are the in-repo replacements for the external accelerated engines the
 reference forks (SURVEY.md §2.4 judge checklist): the PairHMM forward of

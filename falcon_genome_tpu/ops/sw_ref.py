@@ -121,3 +121,39 @@ def sw_align_ref(read: np.ndarray, window: np.ndarray,
     if R - bi > 0:
         cigar.append((CIGAR_S, R - bi))
     return SWResult(int(best), i, bi, j, bj, cigar)
+
+
+def sw_score_ref_batch(reads: np.ndarray, read_lens: np.ndarray,
+                       windows: np.ndarray, win_lens: np.ndarray,
+                       params: SWParams = SWParams()) -> np.ndarray:
+    """Best local score of each (read, window) pair — ``sw_align_ref``'s
+    score, vectorized over pairs for batches at production widths.  F and
+    the diagonal term of a row are array expressions over (window
+    position, pair); E and H walk along the row."""
+    B, R = reads.shape
+    W = windows.shape[1]
+    rl = np.asarray(read_lens, np.int64)
+    wl = np.asarray(win_lens, np.int64)
+    go = params.gap_open + params.gap_ext
+    ge = params.gap_ext
+    win = windows.T.astype(np.int64)                    # (W, B)
+    col_ok = np.arange(1, W + 1)[:, None] <= wl[None, :]
+    Hp = np.zeros((W + 1, B), np.int64)
+    Fp = np.full((W + 1, B), NEG, np.int64)
+    best = np.zeros(B, np.int64)
+    for i in range(1, int(rl.max(initial=0)) + 1):
+        sub = np.where(reads[:, i - 1].astype(np.int64) == win,
+                       params.match, -params.mismatch)
+        diag = Hp[:-1] + sub
+        F = np.maximum(Hp[1:] - go, Fp[1:] - ge)
+        Hi = np.zeros((W + 1, B), np.int64)
+        e = np.full(B, NEG, np.int64)
+        for j in range(1, W + 1):
+            e = np.maximum(Hi[j - 1] - go, e - ge)
+            Hi[j] = np.maximum(np.maximum(0, diag[j - 1]),
+                               np.maximum(e, F[j - 1]))
+        row_ok = (i <= rl)[None, :] & col_ok
+        best = np.maximum(best, np.where(row_ok, Hi[1:], 0).max(axis=0))
+        Hp = Hi
+        Fp = np.concatenate([np.full((1, B), NEG, np.int64), F])
+    return best.astype(np.int32)

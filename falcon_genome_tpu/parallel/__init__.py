@@ -1,10 +1,10 @@
 """Multi-chip parallelism: mesh construction, sharded compute steps.
 
-TPU-native replacement for the reference's scale-out machinery (SURVEY.md
+Replacement for the reference's scale-out machinery (SURVEY.md
 §2.3-2.4): mpirun/ssh/hostfiles become a `jax.sharding.Mesh`; per-contig
 process scatter (P1) becomes region sharding; per-host read scatter
 (P2/P5) becomes data sharding; MPI allreduce/gather becomes psum/gather
-collectives compiled by XLA over ICI.
+collectives compiled by XLA (NCCL between GPUs).
 """
 from .mesh import MeshSpec, make_mesh
 from .sharded import (

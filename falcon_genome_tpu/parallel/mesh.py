@@ -9,8 +9,9 @@ maps to a 2-axis logical mesh:
 * ``region`` — genome-region parallelism (the reference's ncontigs process
   scatter, P1).
 
-Single-host multi-chip uses ICI for both axes; multi-host puts ``data``
-across hosts (DCN) and ``region`` within a host.
+On one host every card reaches every other at the same rate, so the mesh
+follows the algorithm alone; multi-host puts ``data`` across hosts and
+``region`` within a host.
 """
 from __future__ import annotations
 
@@ -51,20 +52,29 @@ def make_mesh(spec: MeshSpec = MeshSpec(),
 def distributed_initialize(coordinator: str | None = None,
                            num_processes: int | None = None,
                            process_id: int | None = None) -> None:
-    """Multi-host bring-up (replaces mpirun: jax.distributed.initialize).
+    """Multi-process bring-up (replaces mpirun: jax.distributed.initialize).
 
-    No-op when single-process (the common single-host case).
+    Each process takes one GPU of the host: process i gets card i, unless
+    ``JAX_LOCAL_DEVICE_IDS`` names the cards (JAX reads it).  A JAX
+    process reserves most of the memory of every card it sees, so
+    processes must not share cards; CPU processes ignore the card ids.
+    No-op when single-process (one process drives every card of a host
+    through the mesh).
     """
     if num_processes and num_processes > 1:
+        import os
+        ids = (None if os.environ.get("JAX_LOCAL_DEVICE_IDS")
+               else [process_id or 0])
         jax.distributed.initialize(
             coordinator_address=coordinator,
             num_processes=num_processes,
-            process_id=process_id)
+            process_id=process_id,
+            local_device_ids=ids)
 
 
 # ---------------------------------------------------------------------------
 # active mesh: the pipeline-wide device mesh the compute kernels dispatch
-# through (the TPU-native analog of the reference running its whole pipeline
+# through (the analog of the reference running its whole pipeline
 # under mpirun/ssh scale-out — src/workers/BWAWorker.cpp:97-130,
 # src/Executor.cpp:231-267 — instead of per-demo wiring)
 # ---------------------------------------------------------------------------
@@ -108,7 +118,7 @@ def mesh_from_conf(conf, devices: list | None = None) -> Mesh | None:
     take the plain single-chip path.  ``tpu.mesh.data = -1`` means "all
     devices not taken by region", so on a multi-chip host the default
     config scales out automatically (the reference needs an explicit
-    ``hosts`` list; a TPU slice's chips are always visible).
+    ``hosts`` list; a host's cards are always visible).
     """
     devices = devices if devices is not None else jax.devices()
     region = max(1, int(conf.get("tpu.mesh.region")))

@@ -8,7 +8,7 @@ over a (data, region) mesh.  Sharding layout:
   works an independent slice of read×hap pairs (the reference's P1×P2/P5
   axes fused);
 * the covariate histogram is psum-reduced to a replicated table (the
-  reference's BQSRGatherWorker table merge as an ICI collective);
+  reference's BQSRGatherWorker table merge as a collective);
 * per-pair log-likelihoods stay sharded (they are consumed shard-locally
   by genotyping).
 """
@@ -20,28 +20,20 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..bqsr import MAX_CYCLE, MAX_QUAL, N_CONTEXT
-from ..ops.pairhmm import PairHMMParams, _local_pairhmm
+from ..ops import dispatch
+from ..ops.pairhmm import _local_pairhmm
 
 
-def _default_params(R: int, H: int) -> PairHMMParams:
-    """The real per-device kernel: Pallas on TPU, portable scan on CPU."""
-    return PairHMMParams(
-        max_read_len=R, max_hap_len=H,
-        backend="pallas" if jax.default_backend() == "tpu" else "jax")
-
-
-def sharded_pairhmm_step(mesh: Mesh, R: int, H: int,
-                         params: PairHMMParams | None = None):
-    """The production kernel under shard_map; batch lanes shard over the
-    fused (data, region) mesh.  Per-device work is the SAME Pallas kernel
-    the single-chip path runs (ops/pairhmm.py), not a portable stand-in."""
-    params = params or _default_params(R, H)
+def sharded_pairhmm_step(mesh: Mesh, R: int, H: int):
+    """The production per-device body under shard_map; batch lanes shard
+    over the fused (data, region) mesh.  Per-device work is the SAME code
+    the single-device path runs (ops/pairhmm.py::_local_pairhmm)."""
+    impl = dispatch.choose("pairhmm")
     spec = P(None, ("data", "region"))  # (rows, B) — shard lanes
 
     def local(read_codes, base_q, ins_q, del_q, gcp, rlen, hlen, hap_codes):
         return _local_pairhmm(read_codes, base_q, ins_q, del_q, gcp,
-                              rlen, hlen, hap_codes, R=R, H=H,
-                              params=params)
+                              rlen, hlen, hap_codes, R=R, H=H, impl=impl)
 
     return jax.jit(jax.shard_map(
         local, mesh=mesh, in_specs=(spec,) * 8,
@@ -49,15 +41,22 @@ def sharded_pairhmm_step(mesh: Mesh, R: int, H: int,
 
 
 def _histogram_local(rg, qual, cycle, context, is_error, weight, nrg):
-    """Scatter-add covariate histograms for one device's slice."""
+    """Scatter-add covariate histograms for one device's slice.
+
+    Counts are int32 (weight and is_error are 0/1), so the sums are exact
+    up to 2^31 per bin; float32 sums stop being exact past 2^24."""
+    i32 = jnp.int32
+    weight = weight.astype(i32)
+    errw = weight * is_error.astype(i32)
+    qual = jnp.minimum(qual, MAX_QUAL - 1)    # top bin, as the host path
     flat = (rg * MAX_QUAL + qual) * MAX_CYCLE + cycle
-    obs = jnp.zeros(nrg * MAX_QUAL * MAX_CYCLE).at[flat].add(weight)
-    err = jnp.zeros(nrg * MAX_QUAL * MAX_CYCLE).at[flat].add(
-        weight * is_error)
+    obs = jnp.zeros(nrg * MAX_QUAL * MAX_CYCLE, i32).at[flat].add(weight)
+    err = jnp.zeros(nrg * MAX_QUAL * MAX_CYCLE, i32).at[flat].add(errw)
     ctx_flat = (rg * MAX_QUAL + qual) * N_CONTEXT + context
-    ctx_obs = jnp.zeros(nrg * MAX_QUAL * N_CONTEXT).at[ctx_flat].add(weight)
-    ctx_err = jnp.zeros(nrg * MAX_QUAL * N_CONTEXT).at[ctx_flat].add(
-        weight * is_error)
+    ctx_obs = jnp.zeros(nrg * MAX_QUAL * N_CONTEXT, i32).at[ctx_flat].add(
+        weight)
+    ctx_err = jnp.zeros(nrg * MAX_QUAL * N_CONTEXT, i32).at[ctx_flat].add(
+        errw)
     return (obs.reshape(nrg, MAX_QUAL, MAX_CYCLE),
             err.reshape(nrg, MAX_QUAL, MAX_CYCLE),
             ctx_obs.reshape(nrg, MAX_QUAL, N_CONTEXT),
@@ -69,8 +68,8 @@ def sharded_bqsr_histogram(mesh: Mesh, nrg: int = 1):
 
     Inputs are flat covariate arrays sharded on the fused (data, region)
     axis plus a per-element weight (0 for padding); the output tables are
-    replicated — an AllReduce over ICI, the TPU-native BQSRGatherWorker
-    (src/workers/BQSRWorker.cpp:111-150).
+    replicated — an AllReduce across the devices, the BQSRGatherWorker
+    table merge (src/workers/BQSRWorker.cpp:111-150).
     """
     flat_spec = P(("data", "region"))
 
@@ -84,23 +83,21 @@ def sharded_bqsr_histogram(mesh: Mesh, nrg: int = 1):
         out_specs=(P(), P(), P(), P()), check_vma=False))
 
 
-def germline_train_step(mesh: Mesh, R: int, H: int, nrg: int = 1,
-                        params: PairHMMParams | None = None):
+def germline_train_step(mesh: Mesh, R: int, H: int, nrg: int = 1):
     """The full multi-chip device step of the germline pipeline:
 
     sharded PairHMM likelihoods (the production kernel) + replicated BQSR
     histogram — one jitted shard_map over the mesh, exercising both the
-    sharded compute path and the ICI collectives.
+    sharded compute path and the collectives.
     """
-    params = params or _default_params(R, H)
+    impl = dispatch.choose("pairhmm")
     batch_spec = P(None, ("data", "region"))
     flat_spec = P(("data", "region"))
 
     def local(read_codes, base_q, ins_q, del_q, gcp, rlen, hlen, hap_codes,
               rg, qual, cycle, context, is_error):
         logp = _local_pairhmm(read_codes, base_q, ins_q, del_q, gcp,
-                              rlen, hlen, hap_codes, R=R, H=H,
-                              params=params)
+                              rlen, hlen, hap_codes, R=R, H=H, impl=impl)
         flat = (rg * MAX_QUAL + qual) * MAX_CYCLE + cycle
         obs = jnp.zeros(nrg * MAX_QUAL * MAX_CYCLE).at[flat].add(1.0)
         hist = jax.lax.psum(obs.reshape(nrg, MAX_QUAL, MAX_CYCLE),
@@ -157,7 +154,7 @@ def distributed_sort_step(mesh: Mesh, n_local: int, axis_name: str = "data",
     device holds n_local).  Callers embed the payload in the key's low
     bits (coordinate sort packs ``tid:8 | pos:32 | row:24``).
 
-    Sample-sort over ICI: local sort → all_gather regular samples →
+    Sample-sort across the devices: local sort → all_gather regular samples →
     global splitters → static-capacity bucket exchange via all_to_all →
     local merge.  Returns per-device sorted runs (pad-filled past the
     valid count), the per-device valid count (from a counts exchange, not
@@ -242,7 +239,7 @@ def mesh_coordinate_order(tid: np.ndarray, pos: np.ndarray,
                           mesh: Mesh, axis_name: str = "data"
                           ) -> np.ndarray | None:
     """Coordinate argsort over the device mesh: the bucket-BAM sort/merge
-    tree (SambambaWorker SORT over part-%06d shards) as an ICI collective.
+    tree (SambambaWorker SORT over part-%06d shards) as a collective.
 
     Packs ``tid:8 | pos:32 | row:24`` into uint64 keys and sample-sorts
     them over the mesh; the low 24 bits come back as the permutation.

@@ -16,7 +16,7 @@ Semantics carried over from the reference's Executor (src/Executor.cpp):
   stage returns its declared outputs so downstream gather steps still
   see the per-task artifact paths;
 * ``profile_dir`` wraps each stage in a ``jax.profiler.trace`` (the
-  ``tpu.profile`` option — the TPU-native replacement for the
+  ``tpu.profile`` option — the replacement for the
   reference's coarse wall-clock-only tracing).
 
 Concurrency is a thread pool (tasks are IO + device-dispatch bound; the

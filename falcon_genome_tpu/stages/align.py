@@ -3,7 +3,7 @@
 Mirrors the reference's align driver (src/worker-align.cpp:19-255): per
 sample (sample-sheet loop), per read-group alignment, bucketed sorted
 output with ``part-%06d.bam`` naming (BWAWorker's ``--num_buckets``), then
-merge.  Compute is the in-repo aligner engine (minimizer seeding + TPU SW
+merge.  Compute is the in-repo aligner engine (minimizer seeding + device SW
 extension) instead of a forked ``bwa-flow mem``.
 
 Record emission is columnar end-to-end: alignments become RecordColumns

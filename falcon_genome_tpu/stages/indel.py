@@ -43,8 +43,6 @@ log = logging.getLogger("falcon_genome_tpu")
 def _realign_interval(reads, codes: np.ndarray, lo0: int, hi0: int,
                       params: SWParams) -> int:
     """RTC + realignment over one interval's reads (in place)."""
-    import jax
-
     live = [r for r in reads if not r.is_unmapped
             and r.seq not in ("*", "")]
     if not live:
@@ -71,10 +69,7 @@ def _realign_interval(reads, codes: np.ndarray, lo0: int, hi0: int,
             rl[i] = len(s)
         wins = np.tile(win, (len(cand), 1)).astype(np.uint8)
         wl = np.full(len(cand), len(win), np.int32)
-        bucket = SWBucket(
-            max_read_len=R, max_win_len=W,
-            backend="pallas" if jax.default_backend() == "tpu"
-            else "jax")
+        bucket = SWBucket(max_read_len=R, max_win_len=W)
         results = sw_extend_batch(rarr, rl, wins, wl, params, bucket)
         for r, res in zip(cand, results):
             if res.score <= 0:
@@ -174,12 +169,10 @@ def _realign_columns(cols: RecordColumns, codes: np.ndarray, lo0: int,
     Replaces the per-target python loop (record objects, one device
     dispatch + compile variant per target) with ONE columnar activity
     pileup, ONE candidate-overlap join and batched window-gather SW over
-    every (read, target) pair — the per-target path cost ~34 s/Mb at
-    WGS scale, dominated by object churn and per-target device syncs.
+    every (read, target) pair — the per-target path was dominated by
+    object churn and per-target device syncs at WGS scale.
     ``_realign_interval`` (records) remains the semantics reference;
     tests assert record-equal output."""
-    import jax
-
     from ..io.columns import F_ENDPOS, F_FLAG, F_LSEQ, F_NCIGAR, F_POS
     from ..io.sam import FLAG_UNMAPPED
     from ..models.activeregion import regions_from_activity
@@ -227,9 +220,7 @@ def _realign_columns(cols: RecordColumns, codes: np.ndarray, lo0: int,
     R = 160 if int(rl_u.max()) <= 160 else int(
         (int(rl_u.max()) + 31) // 32 * 32)
     W = 384
-    bucket = SWBucket(
-        max_read_len=R, max_win_len=W,
-        backend="pallas" if jax.default_backend() == "tpu" else "jax")
+    bucket = SWBucket(max_read_len=R, max_win_len=W)
     reads_pad = np.full((len(urows), R), 4, np.uint8)
     for i, r in enumerate(urows):            # ragged gather, ~unique rows
         o = cols.seq_off[r]

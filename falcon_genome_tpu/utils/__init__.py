@@ -1,6 +1,6 @@
 """Common utilities: typed errors, filesystem helpers, shard naming, timing.
 
-TPU-native re-expression of the reference's L1 utils layer
+Re-expression of the reference's L1 utils layer
 (/root/reference/src/common.cpp, include/fcs-genome/common.h).
 """
 from .errors import (

@@ -8,7 +8,7 @@ common.cpp:226-233), and wall-clock stage timing (common.h:93-108).
 
 Deterministic artifact naming is load-bearing: it is what makes every pipeline
 stage individually re-runnable (the reference's checkpoint/resume story,
-SURVEY.md §5) — the TPU build keeps the exact same scheme so shard outputs are
+SURVEY.md §5) — this build keeps the exact same scheme so shard outputs are
 addressable without a manifest.
 """
 from __future__ import annotations

@@ -92,7 +92,7 @@ class ExtraOpts:
     def warn_unused(self, stage: str) -> list[str]:
         unused = sorted(set(self.map) - self._used)
         for k in unused:
-            log.warning("%s: extra option %s has no effect in the TPU "
+            log.warning("%s: extra option %s has no effect in this "
                         "engine (accepted for reference compatibility)",
                         stage, k)
         return unused

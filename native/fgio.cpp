@@ -2,11 +2,11 @@
 //
 // The reference's native layer is its C++ runtime plus the external C/C++
 // engines it forks (SURVEY.md §7); this extension is our equivalent for the
-// host side: codec + index hot loops that feed the TPU kernels.
+// host side: codec + index hot loops that feed the device kernels.
 //
 //   * BGZF block deflate       (replaces forked bgzip — VCFUtilsWorker)
 //   * minimizer extraction     (aligner index build / query inner loop)
-//   * batched SW traceback     (CIGAR assembly from kernel pointer bits)
+//   * packed op-stream RLE     (CIGAR assembly from the device traceback)
 //
 // Exposed as a plain C ABI consumed via ctypes (no pybind11 in the image).
 // Each entry point mirrors a pure-Python implementation that remains the
@@ -613,84 +613,6 @@ void fg_minimizers_batch(const uint8_t* codes, int64_t stride,
     ts.emplace_back(work, s0, s1);
   }
   for (auto& th : ts) th.join();
-}
-
-// ---------------------------------------------------------------------------
-// batched SW traceback (must match ops.smith_waterman.traceback)
-// ---------------------------------------------------------------------------
-
-// ptr: (D, R, B) int8 diagonal-major pointer bits.
-// For each lane b: start from (score[b], pos[b]); emit cigar ops into
-// out_ops/out_lens[b*max_ops ...]; meta[b*5..] = (ncigar, read_start,
-// read_end, ref_start, ref_end).
-// Op codes: 0=M 1=I 2=D 4=S (SAM numeric).
-void fg_sw_traceback_batch(const int8_t* ptr, int64_t D, int64_t R,
-                           int64_t B, const int32_t* scores,
-                           const int32_t* pos, const int32_t* read_lens,
-                           int64_t pos_stride, int32_t max_ops,
-                           int32_t* out_ops, int32_t* out_lens,
-                           int32_t* out_meta) {
-  for (int64_t b = 0; b < B; b++) {
-    int32_t* ops = out_ops + b * max_ops;
-    int32_t* lens = out_lens + b * max_ops;
-    int32_t* meta = out_meta + b * 5;
-    int rl = read_lens[b];
-    int nc = 0;
-    auto push = [&](int op, int len) {
-      if (len <= 0) return;
-      if (nc > 0 && ops[nc - 1] == op) {
-        lens[nc - 1] += len;
-      } else if (nc < max_ops) {
-        ops[nc] = op;
-        lens[nc] = len;
-        nc++;
-      }
-    };
-    if (scores[b] <= 0) {
-      push(4, rl);
-      meta[0] = nc; meta[1] = 0; meta[2] = 0; meta[3] = 0; meta[4] = 0;
-      continue;
-    }
-    int64_t d_prog = pos[b] / pos_stride;
-    int64_t r = pos[b] % pos_stride;
-    int64_t bi = r + 1;
-    int64_t bj = d_prog - r;
-    int64_t i = bi, j = bj;
-    // collect ops reversed into a temp buffer
-    std::vector<int> rev;
-    rev.reserve(256);
-    while (i > 0 && j > 0) {
-      int byte = ptr[((i + j - 1) * R + (i - 1)) * B + b];
-      int hdir = byte & 3;
-      if (hdir == 0) break;
-      if (hdir == 1) {
-        rev.push_back(0);
-        i--; j--;
-      } else if (hdir == 2) {
-        while (true) {
-          rev.push_back(2);
-          int ext = (ptr[((i + j - 1) * R + (i - 1)) * B + b] >> 2) & 1;
-          j--;
-          if (!ext || j <= 0) break;
-        }
-      } else {
-        while (true) {
-          rev.push_back(1);
-          int ext = (ptr[((i + j - 1) * R + (i - 1)) * B + b] >> 3) & 1;
-          i--;
-          if (!ext || i <= 0) break;
-        }
-      }
-    }
-    push(4, (int)i);
-    for (int64_t t = (int64_t)rev.size() - 1; t >= 0; t--) push(rev[t], 1);
-    push(4, (int)(rl - bi));
-    meta[0] = nc;
-    meta[1] = (int32_t)i;
-    meta[2] = (int32_t)bi;
-    meta[3] = (int32_t)j;
-    meta[4] = (int32_t)bj;
-  }
 }
 
 // ---------------------------------------------------------------------------

@@ -3,27 +3,23 @@
 # clean tree (the reference's Jenkinsfile-local build-and-ctest role —
 # /root/reference/Jenkinsfile-local, jenkinsut:1-24).
 #
-# Gates, in order:
+# Gates, in order (all on the CPU; the GPU checks are chip_smoke.py and
+# bench.py, run on a machine with the card — see README "Tests"):
 #   1. native build        (g++ fgio.cpp → libfgio.so, atomic relink)
-#   2. lint                (pyflakes-level: python -m compileall + import)
+#   2. lint                (python -m compileall + import every module)
 #   3. unit + e2e tests    (pytest on the 8-device virtual CPU mesh)
-#   4. multichip dryrun    (full sharded germline step on N virtual devs)
-#   5. bench smoke         (PairHMM kernel JSON line; CPU backend unless
-#                           a TPU is attached — rate gates apply only on
-#                           real hardware, the smoke gate is "runs and
-#                           emits valid JSON")
+#   4. multichip dryrun    (full sharded germline step on N virtual devs,
+#                           in a child process; this script stays off JAX)
 #
-# Usage: scripts/ci.sh [--fast]     (--fast skips the bench smoke)
+# Usage: scripts/ci.sh
 set -euo pipefail
 cd "$(dirname "$0")/.."
-REPO="$PWD"
-FAST="${1:-}"
 
-echo "== [1/5] native build =="
+echo "== [1/4] native build =="
 bash native/build.sh
 
-echo "== [2/5] lint (compileall + package import) =="
-python -m compileall -q falcon_genome_tpu tests bench.py __graft_entry__.py
+echo "== [2/4] lint (compileall + package import) =="
+python -m compileall -q falcon_genome_tpu tests bench.py chip_smoke.py __graft_entry__.py
 python - <<'EOF'
 import importlib, pkgutil
 import falcon_genome_tpu
@@ -38,35 +34,15 @@ assert not bad, bad
 print(f"imported {len(list(pkgutil.walk_packages(falcon_genome_tpu.__path__, 'falcon_genome_tpu.')))} modules clean")
 EOF
 
-echo "== [3/5] tests (virtual 8-device CPU mesh) =="
-python -m pytest tests/ -x -q
+echo "== [3/4] tests (virtual 8-device CPU mesh) =="
+JAX_PLATFORMS=cpu python -m pytest tests/ -x -q -m 'not slow'
 
-echo "== [4/5] multichip dryrun (8 virtual devices) =="
+echo "== [4/4] multichip dryrun (8 virtual devices) =="
 XLA_FLAGS="--xla_force_host_platform_device_count=8" JAX_PLATFORMS=cpu \
 python - <<'EOF'
 import __graft_entry__ as ge
 ge.dryrun_multichip(8)
 print("dryrun_multichip(8): ok")
 EOF
-
-if [ "$FAST" != "--fast" ]; then
-  echo "== [5/5] bench smoke =="
-  python - <<'EOF'
-import json, subprocess, sys
-r = subprocess.run([sys.executable, "bench.py"], capture_output=True,
-                   text=True, timeout=1800)
-line = [l for l in r.stdout.splitlines() if l.startswith("{")]
-assert r.returncode == 0 and line, (r.returncode, r.stdout[-2000:],
-                                    r.stderr[-2000:])
-d = json.loads(line[-1])
-assert d["metric"] == "pairhmm_forward_gcups" and d["value"] > 0
-mfu = d.get("extras", {}).get("pairhmm_mfu")
-if mfu is not None:
-    assert 0 < mfu <= 1.0, f"impossible MFU {mfu}"
-print("bench smoke:", json.dumps(d)[:160], "...")
-EOF
-else
-  echo "== [5/5] bench smoke skipped (--fast) =="
-fi
 
 echo "CI: all gates passed"

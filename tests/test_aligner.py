@@ -16,7 +16,7 @@ from falcon_genome_tpu.io.sam import (
     FLAG_PROPER_PAIR, FLAG_REVERSE, FLAG_UNMAPPED, cigar_to_str)
 from falcon_genome_tpu.ops.smith_waterman import SWBucket
 
-BUCKET = SWBucket(max_read_len=128, max_win_len=256, backend="jax")
+BUCKET = SWBucket(max_read_len=128, max_win_len=256)
 
 
 @pytest.fixture(scope="module")

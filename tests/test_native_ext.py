@@ -76,8 +76,7 @@ class TestTraceback:
         res = sw_extend_batch(
             reads, np.full(n, rl, np.int32), wins,
             np.full(n, wl, np.int32),
-            bucket=SWBucket(max_read_len=64, max_win_len=128,
-                            backend="jax"))
+            bucket=SWBucket(max_read_len=64, max_win_len=128))
         # native path was used (available); compare against golden
         for b in range(n):
             want = sw_align_ref(reads[b], wins[b])

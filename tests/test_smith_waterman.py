@@ -7,8 +7,7 @@ from falcon_genome_tpu.ops.smith_waterman import (
     SWBucket, SWParams, sw_extend_batch)
 from falcon_genome_tpu.ops.sw_ref import sw_align_ref
 
-BUCKET = SWBucket(max_read_len=32, max_win_len=64, backend="jax")
-BUCKET_PALLAS = SWBucket(max_read_len=32, max_win_len=64, backend="interpret")
+BUCKET = SWBucket(max_read_len=32, max_win_len=64)
 
 
 def make_batch(rng, n, read_len=24, win_len=48, mutate=0.0, indel=0.0):
@@ -124,8 +123,3 @@ class TestKernelVsGolden:
                               np.array([48], np.int32), bucket=BUCKET)
         assert res[0].score == 0
         assert cigar_to_str(res[0].cigar) == "24S"
-
-    def test_pallas_kernel(self, rng):
-        args = make_batch(rng, 2, mutate=0.05)
-        res = sw_extend_batch(*args, bucket=BUCKET_PALLAS)
-        check_vs_golden(*args, res)
